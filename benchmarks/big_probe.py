@@ -10,8 +10,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from frave_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def sync():

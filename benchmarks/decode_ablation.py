@@ -1,6 +1,6 @@
 """Knock-out ablation of the decode wavefront scan (headline config:
 B=64, 256x256 gray). Each variant removes one part of the per-step body
-(timing only — knocked-out variants decode garbage) so the ~1.6ms/step
+(timing only — knocked-out variants decode garbage) so the per-step
 cost can be attributed:
 
   full        the production body
@@ -17,8 +17,8 @@ loop-carried dependency, so XLA can overlap steps that production must
 serialize. Their deltas measure the cost of the dependency chain, NOT
 the knocked-out op alone: an int32+unique_indices scatter rewrite that
 the isolated microbenchmark said was 25x faster changed end-to-end
-decode by ~0 (A/B on real TPU: 9.2->8.6 MP/s headline, 1.30->1.27 MP/s
-at 2048 RGB, i.e. slightly WORSE). The wavefront scan is bound by the
+decode by ~0 on the hardware first measured (slightly WORSE). The
+wavefront scan there was bound by the
 per-step critical path gather->contexts->rANS->scatter, not by any op's
 throughput in isolation.
 """
@@ -30,8 +30,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+from frave_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
@@ -136,7 +138,7 @@ def main():
                 if "stream" in skip:
                     w = jnp.zeros((C, nl), jnp.uint32)
                 else:
-                    # mirror production decode_step_merged: one-hot MXU
+                    # mirror production decode_step_merged: one-hot
                     # contraction for small word blocks, linear
                     # batched-index gather for wide ones
                     blk = C * nl

@@ -14,8 +14,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+from frave_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 import jax
@@ -28,8 +30,8 @@ from bench import make_corpus  # noqa: E402
 def timeit(fn, *args, reps=4):
     out = fn(*args)
     jax.block_until_ready(out)
-    # honest mode: block_until_ready does not synchronize before the
-    # process's first device->host fetch (BASELINE.md round-3 note)
+    # one device->host fetch before timing: a first fetch can carry
+    # one-off set-up cost
     np.asarray(jnp.zeros(()))
     best = 1e9
     for _ in range(reps):

@@ -21,7 +21,9 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
+from frave_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main() -> int:

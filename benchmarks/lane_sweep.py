@@ -1,9 +1,8 @@
 """Sweep rANS lane count at the headline config (B=64, 256x256 gray):
-per-batch encode/decode wall clock + bytes per image. The per-step cost
-of both rANS scans is dominated by fixed-size batched-gather overhead
-(see ops/rans_jax.py SCAN_UNROLL note), so fewer steps (more lanes) buys
-near-linear scan speedup at the price of per-lane state bytes on the
-wire (~2-4 B/lane).
+per-batch encode/decode wall clock + bytes per image. Where the
+per-step cost of the rANS scans is a fixed overhead (see ops/rans_jax.py
+SCAN_UNROLL note), fewer steps (more lanes) buys near-linear scan
+speedup at the price of per-lane state bytes on the wire (~2-4 B/lane).
 
 Usage: python benchmarks/lane_sweep.py [nl ...]  (default 512 1024 2048)
 """
@@ -15,8 +14,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+from frave_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import numpy as np

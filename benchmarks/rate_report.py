@@ -1,13 +1,12 @@
 """Lossless rate report on a REAL-image corpus vs PNG.
 
-The container has no network egress, so the corpus is real photographs
-shipped inside installed packages (skipped gracefully if absent) plus the
-reference repo's own test image. Run:
+The corpus is real photographs shipped inside installed packages
+(skipped gracefully if absent) plus the reference repo's own test
+image. Run:
 
     python benchmarks/rate_report.py [--backend numpy|jax] [--trial]
 
-Prints a per-image table (frif bpp vs PNG bpp) and corpus averages;
-results are recorded in BASELINE.md.
+Prints a per-image table (frif bpp vs PNG bpp) and corpus averages.
 """
 
 from __future__ import annotations

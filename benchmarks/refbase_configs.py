@@ -4,7 +4,7 @@ faithful (per-image lattice rebuild, what the reference CLI does —
 wavelet_transform.rs:405,392) and geometry-cached variants.
 
 Prints one line per (shape, variant): enc MP/s, dec MP/s, rt MP/s.
-Pure CPU — safe to run while the TPU is busy."""
+Pure CPU — needs no accelerator."""
 
 import os
 import sys

@@ -1,7 +1,7 @@
 // Single-thread CPU reference baseline ("what the Rust CLI would do").
 //
-// The reference (pagmerek/frave) is a single-threaded Rust codec with no
-// toolchain available in this container (BASELINE.md), so the north-star
+// The reference (pagmerek/frave) is a single-threaded Rust codec that
+// publishes no numbers and is not built here, so the north-star
 // denominator "single-thread CPU encode+decode MP/s" is measured from
 // this faithful native reimplementation of the reference pipeline
 // (encoder.rs:6-49 / decoder.rs:6-42 stage flow):
@@ -22,7 +22,7 @@
 //   (entropy_coding.rs:205-264, the reference's decode bottleneck) ->
 //   inverse lifting -> pixels.
 //
-// Honesty notes, biased AGAINST the TPU framework: this baseline uses
+// Honesty notes, biased AGAINST the JAX codec: this baseline uses
 // flat precomputed index arrays (csrc/geometry.cpp) where the Rust
 // reference chases per-pixel HashMaps, and -O3 -march=native scalar
 // loops — i.e. it is FASTER than a literal port of the reference would

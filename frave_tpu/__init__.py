@@ -1,12 +1,12 @@
-"""frave_tpu — a TPU-native fractal-wavelet image codec framework.
+"""frave_tpu — a fractal-wavelet lossless image codec in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 reference Rust codec ``pagmerek/frave`` (libfri/fri-cli): tame-twindragon
 fractal tiling, per-tile Haar-style lifting wavelets, learned causal
 linear predictors, Laplace-context binning, and interleaved multi-stream
 rANS entropy coding into a self-describing container.
 
-Architecture (TPU-first, not a port):
+Architecture (dense array programs, not a port):
   * All geometry (tiling, tile trees, neighbour lattice, canonical order,
     decode wavefront) is precomputed on host as index tensors
     (``frave_tpu.fractal``) — every per-pixel stage is a dense array
@@ -15,7 +15,7 @@ Architecture (TPU-first, not a port):
     symbols are laid out along a static dependency-wavefront schedule and
     round-robined over N interleaved rANS lanes, so decode is a
     ``lax.scan`` over wavefront steps with all lanes advancing at once.
-  * Multi-chip scaling uses ``jax.sharding``/``shard_map`` with XLA
+  * Multi-device scaling uses ``jax.sharding``/``shard_map`` with XLA
     collectives (psum for global context histograms and Gram-matrix
     predictor fits, gathers for cross-tile halos).
 
@@ -25,7 +25,6 @@ decoder.rs:48-59).
 
 __version__ = "0.1.0"
 
-from . import _malloc_tuning  # noqa: F401  (see module docstring)
 from .images import (
     ColorSpace,
     FractalVariant,

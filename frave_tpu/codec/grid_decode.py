@@ -3,8 +3,8 @@
 The decode-scan floor of the step-tensor decoders (pipeline_jax
 decode_fused / decode_fused_seg) is their loop-carried random access:
 each scan step pays a batched-index neighbour gather and a coefficient
-scatter (~0.4 ms each on the target TPU regardless of table size —
-benchmarks/op_cost_probe.py). With the lattice-grid layout
+scatter, a fixed cost per step whatever the table size. With the
+lattice-grid layout
 (fractal/lattice.py) both disappear:
 
   * coefficients live in dense per-level [A, B] grids; the 6 context
@@ -15,20 +15,17 @@ benchmarks/op_cost_probe.py). With the lattice-grid layout
     boundary-proportional fixup scatter (the reference's scale-2
     conditional neighbour corrections, wavelet_transform.rs:97-177);
   * the per-row scan body shrinks to the pure rANS state machine
-    (ops/rans_jax.decode_step_comparefree — one-hot MXU contractions,
-    no table gathers), or optionally the whole-wave Pallas kernel
-    (ops/pallas_rans.decode_scan_wave, FRAVE_GRID_PALLAS=1) that keeps
-    lane states in VMEM across all of a wave's rows.
+    (ops/rans_jax.decode_step_comparefree — one-hot contractions, no
+    table gathers).
 
 Round 4 packs the rANS lanes: rank-within-wave instead of raw grid
 cell (fractal/schedule.grid_row_lane). Round 3 made symbols <-> lanes
 a pure reshape by rastering each wave's full bounding box, which
 padded the scan by ~2.4x rows (647 vs 266 at 2048x2048) and made
-grid-mode encode 2.5x slower than mode=parallel (measured,
-benchmarks/grid_ab.py) while decode won. Packing keeps every scan row
-fully occupied; the grid <-> packed conversion is ONE static bulk
-gather (pack taps) plus ONE static bulk scatter (unpack values) per
-wave — outside the loop-carried scan, where they cost bulk-parallel
+grid-mode encode much slower than mode=parallel while decode won.
+Packing keeps every scan row fully occupied; the grid <-> packed
+conversion is ONE static bulk gather (pack taps) plus ONE static bulk
+scatter (unpack values) per wave — outside the loop-carried scan, where they cost bulk-parallel
 HBM bandwidth instead of per-step latency. This replaces the
 symbol-sequential decode recursion of the reference
 (entropy_coding.rs:354-449).
@@ -52,21 +49,6 @@ from ..entropy.tables_jax import finalize_contexts_device
 from ..fractal.gridplan import apply_plan
 from ..ops import jax_ops as J
 from ..ops.rans_jax import decode_step_comparefree, prepare_compare_tables
-
-
-def pallas_rans_enabled(nl: int) -> bool:
-    """Whether grid decode routes the per-wave rANS scan through the
-    ARCHIVED whole-wave Pallas kernel (ops/pallas_rans.decode_scan_wave
-    — see its module docstring for the round-5 archival verdict).
-    FRAVE_GRID_PALLAS=1 is an experiment flag for re-measurement on
-    future TPU generations, not a production path: the kernel lost the
-    hardware A/B (XLA scan 8.92 vs 7.12 MP/s, BASELINE.md round 4)."""
-    if os.environ.get("FRAVE_GRID_PALLAS") != "1":
-        return False
-    from ..ops.pallas_lifting import pallas_supported
-    from ..ops.pallas_rans import kernel_supported
-
-    return kernel_supported(nl) and pallas_supported()
 
 
 def _shift2(g, s0: int, s1: int, fill):
@@ -316,10 +298,8 @@ def build_grid_decode(prog, geo, sched, nl: int, C: int):
     packed = C == 3
     fill = _PACK_ZERO if packed else 0
     gdtype = jnp.uint32 if packed else jnp.int16
-    use_pallas = prog.use_pallas
-    use_pallas_rans = pallas_rans_enabled(nl)
-    # on-grid context math (see _plane_contexts) — round-5 A/B knob;
-    # default by measurement on the target chip (BASELINE.md round 5)
+    # on-grid context math (see _plane_contexts) — round-5 A/B knob,
+    # off by default (it did not pay on the hardware first measured)
     use_planectx = os.environ.get("FRAVE_GRID_PLANECTX", "0") == "1"
     iota_ca = jnp.arange(CONTEXT_AMOUNT, dtype=jnp.int32)
 
@@ -327,12 +307,8 @@ def build_grid_decode(prog, geo, sched, nl: int, C: int):
         states, stream, wire_bits, offpk, scpk, vparams, wparams,
         qdiv, tid, lap,
         d_coef, d_active, d_nbr, d_lf, d_grp, d_fbkt,
-        pix_inv, node_mask, leaf_inb, lut_bits=None, pallas_ok=False,
+        pix_inv, node_mask, leaf_inb, lut_bits=None,
     ):
-        # pallas_ok: static flag from decode_exec — only the UNBATCHED
-        # (B=1) call may route through the whole-wave kernel (its
-        # manual-DMA stream operand cannot lower under vmap batching)
-        use_kernel = use_pallas_rans and pallas_ok
         # --- wire tables (identical to decode_fused / _seg)
         shifts32 = jnp.arange(32, dtype=jnp.uint32)
         off_mask = (
@@ -343,20 +319,7 @@ def build_grid_decode(prog, geo, sched, nl: int, C: int):
             zero_hist, lap, bits0=wire_bits, off_mask_in=off_mask,
             scale_idx=scpk,
         )
-        if use_kernel:
-            from ..ops.pallas_rans import (
-                prepare_scan_tables,
-                stream_pad_len,
-            )
-
-            tabs_p = prepare_scan_tables(cdfs_i, bits)
-            Wst = stream.shape[-1]
-            need = stream_pad_len(C * nl, Wst)
-            stream32 = jnp.pad(
-                stream.astype(jnp.int32), (0, max(0, need - Wst))
-            )
-        else:
-            tabs = prepare_compare_tables(cdfs_i, bits)
+        tabs = prepare_compare_tables(cdfs_i, bits)
 
         x = states
         gptr = jnp.int32(0)
@@ -376,24 +339,18 @@ def build_grid_decode(prog, geo, sched, nl: int, C: int):
                 C, rows, nl
             ).transpose(1, 0, 2)  # [rows, C, NL]
 
-            if use_kernel:
-                from ..ops.pallas_rans import decode_scan_wave
-
-                syms, x, gptr = decode_scan_wave(
-                    x, gptr, bk, wd.active_rows, stream32, tabs_p
+            def body(carry, xs):
+                x, gptr = carry
+                bk_t, act_t = xs
+                oh = jnp.asarray(
+                    bk_t[..., None] == iota_ca, dtype=jnp.bfloat16
                 )
-            else:
-                def body(carry, xs):
-                    x, gptr = carry
-                    bk_t, act_t = xs
-                    oh = jnp.asarray(
-                        bk_t[..., None] == iota_ca, dtype=jnp.bfloat16
-                    )
-                    sym, x, gptr = decode_step_comparefree(
-                        x, gptr, oh, act_t, stream, tabs
-                    )
-                    return (x, gptr), sym
+                sym, x, gptr = decode_step_comparefree(
+                    x, gptr, oh, act_t, stream, tabs
+                )
+                return (x, gptr), sym
 
+            with jax.named_scope("rans_scan"):
                 (x, gptr), syms = jax.lax.scan(
                     body, (x, gptr), (bk, wd.active_rows)
                 )  # syms [rows, C, NL]
@@ -435,8 +392,8 @@ def build_grid_decode(prog, geo, sched, nl: int, C: int):
             """Tap planes -> (buckets, preds) [C, kw]. Two routes, same
             values: pack-then-contexts (one [kw, 6] row-gather) or
             contexts-on-the-grid (_plane_contexts: elementwise over the
-            dense cells, two [kw] pack gathers) — selected by the
-            measured default / FRAVE_GRID_PLANECTX."""
+            dense cells, two [kw] pack gathers) — selected by
+            FRAVE_GRID_PLANECTX."""
             planes = _tap_planes(wd, pv, parent_vg, packed, C, fill)
             if use_planectx:
                 return _plane_contexts(
@@ -488,22 +445,7 @@ def build_grid_decode(prog, geo, sched, nl: int, C: int):
             qcoef = _unpack3(qpad[:n_slots]).reshape(C, T, N)
         else:
             qcoef = qpad[:, :n_slots].astype(jnp.int32).reshape(C, T, N)
-        if use_pallas:
-            from ..ops.pallas_lifting import dequantize_inverse_lift
-
-            qnt = qcoef.transpose(2, 0, 1).reshape(N, C * T)
-            nmt = jnp.broadcast_to(
-                node_mask.T[:, None, :], (N, C, T)
-            ).reshape(N, C * T)
-            lmt = jnp.broadcast_to(
-                leaf_inb.T[:, None, :], (N, C, T)
-            ).reshape(N, C * T)
-            leaves = (
-                dequantize_inverse_lift(qnt, nmt, lmt, qdiv, depth)
-                .reshape(N, C, T)
-                .transpose(1, 2, 0)
-            )
-        else:
+        with jax.named_scope("inverse_lifting"):
             coef = J.dequantize(qcoef, qdiv[None, None, :])
             leaves = J.inverse_lifting(
                 coef, depth, node_mask[None], leaf_inb[None]
@@ -570,7 +512,7 @@ def build_grid_encode(prog, geo, sched, nl: int, C: int):
     # travel on the wire and both coders consume the wire values, so
     # subsampling perturbs only the fit quality (rate), never
     # correctness; at 2^17 samples a 6-param LSQ is statistically
-    # saturated (rate impact measured ~0, BASELINE.md round 5).
+    # saturated (the rate cost on real photos was below 0.2%).
     # FRAVE_FIT_CAP=0 disables (bit-exact vs the step-tensor encode).
     cap = int(os.environ.get("FRAVE_FIT_CAP", str(1 << 17)))
     put = jax.device_put

@@ -60,9 +60,9 @@ class EncoderOptions:
     #       rANS lanes are packed per-wave grid rows, so the decode scan
     #       body is gather-free (codec/grid_decode.py). Same rate model
     #       as "parallel", different wire lane order (container encoding
-    #       2). Measured A/B on the chip (BASELINE.md round 4): decode
-    #       +62-95%, encode at parity, round trip +23-37% vs "parallel"
-    #       at both 256^2 gray and 2048^2 RGB. Tiny shapes (< ~32 px a
+    #       2). It beat "parallel" on decode at both 256^2 gray and
+    #       2048^2 RGB on the hardware first measured (not yet
+    #       re-measured on a GPU). Tiny shapes (< ~32 px a
     #       side) keep the grid wire but decode via the step-tensor
     #       path (no exact lattice parent maps there).
     #   "parallel" — all 6 neighbour taps at parent resolution; each

@@ -13,7 +13,7 @@ pmf with f32 libm exp at runtime (prediction.rs:220-222); a 1-ulp libm
 difference between the encode and decode host would corrupt the tables.
 Here exp(-|x|/width) is computed as r^|x| by exponentiation-by-squaring in
 IEEE f64 from hardcoded hex-float constants — bit-identical on every
-platform (and precomputed on host: TPUs have no f64).
+platform (and precomputed on host, so the device never needs f64).
 
 Documented divergences from the reference (SURVEY.md section 7 "bugs to
 consciously not replicate"):
@@ -24,7 +24,7 @@ consciously not replicate"):
     symbol wraps in u32 (:157). We use largest-remainder normalization
     with a deterministic largest-donor fixup — same guarantees (sum is
     exactly 1 << bits, every data symbol keeps freq >= 1), but expressible
-    as fixed-shape vector ops on both host and TPU.
+    as fixed-shape vector ops on both host and device.
   * max_freq_bits is capped at 14 (vs unbounded in the 64-bit-rANS
     reference) so the 32-bit-state/16-bit-renorm vectorized lanes keep the
     at-most-one-renorm-per-symbol invariant (frave_tpu/ops/rans.py).
@@ -55,10 +55,10 @@ MIN_FREQ_BITS = 8
 MAX_FREQ_BITS_CAP = 14
 NUM_BITS_CHOICES = MAX_FREQ_BITS_CAP - MIN_FREQ_BITS + 1  # 7
 # Encoder-side cap, below the wire/decoder max: the decode LUT's size is
-# 2^bits per context, and on this TPU every additional bit doubles the
-# per-batch table footprint and its per-call construction cost while the
-# measured rate cost of 12-vs-14-bit probability resolution is +0.03%
-# (synthetic probe, round 2). Decoders must keep accepting up to
+# 2^bits per context, so every additional bit doubles the per-batch
+# table footprint and its per-call construction cost, while the rate
+# cost of 12-vs-14-bit probability resolution is +0.03% (synthetic
+# probe, round 2). Decoders must keep accepting up to
 # MAX_FREQ_BITS_CAP — v7/v8 streams on the wire carry 13/14-bit contexts.
 ENC_FREQ_BITS_CAP = 12
 
@@ -92,7 +92,7 @@ _BUCKET_WIDTHS = (
 # (prediction.rs:70-84 widths; entropy_coding.rs:82-96 fill) — only the
 # support (off-list) and scale_bits adapt per image. On real photographs
 # the fixed scales mismatch the residual statistics by enough to cost
-# 0.7-2.4% (flat graphics: 17%; measured round 2, see BASELINE.md). v9
+# 0.7-2.4% (flat graphics: 17%; rate measured in round 2). v9
 # adds a per-(channel, context) scale index into a fixed GRID of
 # precomputed Laplace rows: the encoder picks the scale minimizing the
 # estimated code length of the context's actual histogram, the index
@@ -227,7 +227,7 @@ def select_scale(hist: np.ndarray, bits: int) -> int:
 
     Selection is encode-only — the chosen index travels on the wire, so
     host/device selections need not agree bit-for-bit (and don't: the
-    device twin contracts in f32 on the MXU)."""
+    device twin contracts its sums in another order)."""
     b = int(np.clip(bits, MIN_FREQ_BITS, MAX_FREQ_BITS_CAP)) - MIN_FREQ_BITS
     hf = hist.astype(np.float32)
     data = (hist > 0).astype(np.float32)

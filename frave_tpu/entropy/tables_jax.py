@@ -1,15 +1,15 @@
 """Device twin of the context-table pipeline (frave_tpu/entropy/tables.py).
 
 Runs inside the fused encode program so the entire encode is ONE device
-dispatch (the environment charges ~50ms latency per device->host fetch —
-shipping the histogram to the host for table building would double the
-per-image cost). Property-tested for exact integer equality against the
-host implementation: the decoder regenerates tables on host from the wire
-fields (bits, off-list) and rANS breaks on any 1-bit difference.
+dispatch (shipping the histogram to the host for table building would
+add a synchronizing round trip per batch). Property-tested for exact
+integer equality against the host implementation: the decoder
+regenerates tables on host from the wire fields (bits, off-list) and
+rANS breaks on any 1-bit difference.
 
-The Laplace pmf rows need f64 (unavailable on TPU), so they are
-precomputed on host for every (bucket, bits) pair and passed in as a
-[CONTEXT_AMOUNT, 7, 1024] u32 tensor.
+The Laplace pmf rows need f64, so they are precomputed on host for
+every (bucket, bits) pair and passed in as a [CONTEXT_AMOUNT, 7, 1024]
+u32 tensor.
 """
 
 from __future__ import annotations
@@ -50,9 +50,14 @@ def select_scales_device(
         == jnp.arange(NUM_BITS_CHOICES, dtype=jnp.int32)
     ).astype(jnp.float32)  # [..., CA, 7]
     # gains[..., c, g] = sum_a hist*log2row - 16*zeroed_data, at bits0
-    gl = jnp.einsum("...ca,gba->...cgb", h, grid_log2)
-    gz = jnp.einsum("...ca,gba->...cgb", data, grid_zero)
-    gains = jnp.einsum("...cgb,...cb->...cg", gl - 16.0 * gz, ohb)
+    # HIGHEST precision pins f32 math: with TF32 the chosen scales would
+    # depend on the backend's default
+    hi = jax.lax.Precision.HIGHEST
+    gl = jnp.einsum("...ca,gba->...cgb", h, grid_log2, precision=hi)
+    gz = jnp.einsum("...ca,gba->...cgb", data, grid_zero, precision=hi)
+    gains = jnp.einsum(
+        "...cgb,...cb->...cg", gl - 16.0 * gz, ohb, precision=hi
+    )
     return jnp.argmax(gains, axis=-1).astype(jnp.int32)
 
 
@@ -107,11 +112,11 @@ def finalize_contexts_device(
     # [7, ..., CA, 1024] filled tensor: nnz(bits k) = nnz(laplace row k)
     # + |{data symbols where the row is 0}|. The data-dependent part is a
     # 1024-reduction -> one f32 einsum (exact: counts <= 1024 < 2^24)
-    # that XLA maps onto the MXU instead of a 7x-wide elementwise sweep.
-    # HIGHEST precision: under vmap this contraction lowers onto the MXU
-    # with bf16-truncated inputs by default (measured on the target TPU:
-    # vmapped one-hot matvecs of >8-bit values are INEXACT at default
-    # precision); table bits must be exact or streams break
+    # that XLA maps onto a matrix unit instead of a 7x-wide elementwise
+    # sweep. HIGHEST precision: at default precision the contraction may
+    # run with bf16- or TF32-truncated inputs, and one-hot matvecs of
+    # >8-bit values are then INEXACT; table bits must be exact or
+    # streams break
     if scale_idx is None:
         lap_nnz = jnp.sum((lap > 0).astype(jnp.int32), axis=-1)  # [CA, 7]
         extra = jnp.einsum(

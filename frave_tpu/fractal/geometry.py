@@ -19,7 +19,7 @@ Deliberate re-design vs the reference (documented divergences):
     explicit dependency-DAG wavefront layering (frave_tpu/fractal/
     schedule.py) which is provably causal by construction and is also the
     parallel decode schedule. Bitstreams are therefore not byte-compatible
-    with the Rust CLI — decoded pixels are what must match (BASELINE.md).
+    with the Rust CLI — decoded pixels are what must match.
   * Neighbour *semantics* are replicated exactly, including the scale-2
     conditional fixups and the reference's quirk of indexing the global
     position map by scale (not level) inside those fixups
@@ -199,7 +199,7 @@ class FractalGeometry:
     nbr_idx: np.ndarray  # [T * 2**depth, 6] int32 neighbour value indices, -1 absent
     # Level-parallel variant: all six directional neighbours read at the
     # PARENT haar slot (fully decoded when a level starts), so a whole
-    # level is one decode wave — the TPU-first context model ("parallel"
+    # level is one decode wave — the array-first context model ("parallel"
     # mode; the reference's causal same-level taps are kept as "parity"
     # mode via nbr_idx).
     nbr_par: np.ndarray  # [T * 2**depth, 6] int32, -1 absent

@@ -1,6 +1,6 @@
 """Per-level dense lattice grids: the gather-free coefficient layout.
 
-The TPU-first redesign of the codec's data layout (round 3). Every tree
+The array-first redesign of the codec's data layout (round 3). Every tree
 level's node positions form (a coset of) a 2D integer lattice Lambda_s
 (s = depth - level): the six neighbour directions of
 `geometry.nearby_vectors` are lattice vectors, and the parent level's
@@ -10,8 +10,7 @@ wavelet_transform.rs:44-54). Storing each level's coefficients in a
 dense [A, B] array indexed by lattice coordinates therefore turns
 
   * the 6-tap context neighbour reads (nbr_par — the dominant random
-    gather of both pipelines at large shapes: ~13ns/element, ~0.33s per
-    2048^2 RGB image measured round 3)          -> unit-shift slices,
+    gather of both pipelines at large shapes)   -> unit-shift slices,
   * the parent->child value broadcast            -> a polyphase
     interleave of two unimodular grid transforms,
   * every unimodular transform                   -> a short chain of

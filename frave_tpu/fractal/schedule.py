@@ -19,7 +19,7 @@ static *wavefront schedule*:
     so the encoder can build every lane's stream independently (reverse
     scan) and the decoder advances all lanes of a wave chunk at once.
 
-This is the TPU-native replacement for both the serpentine scan order
+This is the data-parallel replacement for both the serpentine scan order
 (wavelet_transform.rs:505-705) and the bucket-indexed 10-stream layout of
 the reference (entropy_coding.rs:266-352): stream membership no longer
 depends on decoded data, only the *frequency table* choice does.
@@ -278,7 +278,7 @@ def build_schedule(geo: FractalGeometry, mode: str = "parallel") -> WavefrontSch
     (context_modeling.rs:25-77); decode waves follow the in-level
     dependency DAG (diagonal wavefronts, mean width ~sqrt(level size)).
 
-    mode="parallel" (default, the TPU-first redesign): ALL six directional
+    mode="parallel" (the array-first redesign): ALL six directional
     taps read at the parent haar slot, which is fully decoded before a
     level starts — each level is ONE wave, so the decode scan has
     ~levels + tile-wavefront steps instead of thousands. The DC phase
@@ -334,7 +334,7 @@ def build_schedule(geo: FractalGeometry, mode: str = "parallel") -> WavefrontSch
             sched_fbkt.append(np.full(T, -1, dtype=np.int8))
             wave_sizes.extend(tile_counts.tolist())
     else:
-        # TPU-first DC: TWO waves instead of the O(sqrt(T)) tile
+        # Array-first DC: TWO waves instead of the O(sqrt(T)) tile
         # wavefront. Phase A: alternate tiles (canonical order) coded
         # context-free in the widest bucket (pred 0 via all-absent taps,
         # bucket forced by sched_fbkt — a few extra bits per A tile).
@@ -508,8 +508,8 @@ def grid_row_lane(sched: WavefrontSchedule, nl: int):
     wave's full bounding-box grid into lanes (lane = cell index), which
     made symbols <-> lanes a pure reshape but padded the scan to the
     grids' inactive cells: 647 rows vs the 266-row packed minimum at
-    2048x2048 (measured A/B, benchmarks/grid_ab.py — the padding made
-    grid-mode ENCODE 2.5x slower than mode=parallel while decode won).
+    2048x2048 (the padding made grid-mode ENCODE much slower than
+    mode=parallel while decode won).
     Packing keeps the scan body gather-free — the compaction moves to
     ONE static bulk gather/scatter per wave, outside the loop-carried
     scan (codec/grid_decode.py). Also returns total rows."""
@@ -567,11 +567,11 @@ def default_num_lanes(num_symbols: int) -> int:
     per-lane counts, so lane count has no u16-width constraint."""
     if num_symbols <= 0:
         return 16
-    # cap raised 4096 -> 16384 in round 2: decode wall-clock is dominated
-    # by a fixed per-wavefront-step cost on the target device, so a
-    # 2048x2048 RGB image at nl=4096 spent 3.8s in ~1070 decode steps;
-    # nl=16384 halves that twice (1.88s) for ~4% more wire bytes
-    # (per-lane state overhead stays ~2.5B/lane, = K//128 lanes max)
+    # cap raised 4096 -> 16384 in round 2: decode time was dominated by
+    # a fixed per-wavefront-step cost on the hardware first tuned on,
+    # and 4x the lanes means a quarter of the decode steps for ~4% more
+    # wire bytes (per-lane state overhead stays ~2.5B/lane, = K//128
+    # lanes max). Not yet re-decided on a GPU.
     target = max(16, min(16384, num_symbols // 128))
     return 1 << (int(target).bit_length() - 1)
 
@@ -586,8 +586,8 @@ def rate_adaptive_lanes(
     container.py, plus up-to-a-word of per-lane flush rounding). On
     flat/graphic content the entropy-coded payload is tiny — e.g. the
     reference repo's fractals.gif grays to ~1.3 KB of symbol payload,
-    where the default 4096 lanes added ~15 KB of overhead (12.8x PNG;
-    measured round 4). Cap lanes so overhead stays <= ~12.5% of the
+    where the default 4096 lanes added ~15 KB of overhead (12.8x PNG,
+    round 4). Cap lanes so overhead stays <= ~12.5% of the
     expected payload, with a floor of 256 so decode keeps a useful
     wavefront (rows = K / nl; rate-focused callers can pin
     EncoderOptions.num_lanes lower, throughput-focused ones higher)."""

@@ -5,12 +5,12 @@ Reference: context_modeling.rs:79-213 — per channel, per layer group
 rest), fit a 6-tap linear value predictor by least squares, then fit a
 6-tap width predictor of |residual| on [1, 5 gradient features].
 
-TPU-native redesign: instead of materializing dense (N x 6) design
+Data-parallel redesign: instead of materializing dense (N x 6) design
 matrices and running an SVD per group (nalgebra lstsq,
 context_modeling.rs:168,185), we accumulate 6x6 Gram matrices G = X^T X
 and moments b = X^T y — a masked segment-sum that is embarrassingly
 parallel, needs O(1) memory, and psum-reduces across shards for the
-multi-chip path (SURVEY.md section 2.3). The solve is a tiny lstsq on the
+multi-device path (SURVEY.md section 2.3). The solve is a tiny lstsq on the
 6x6 system. Rows the reference leaves as zeros (masked/None coefficients,
 context_modeling.rs:109-137) contribute nothing to a Gram matrix, so that
 quirk is mathematically absorbed. Fitted parameters are cast to f32 before

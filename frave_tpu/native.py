@@ -10,6 +10,7 @@ without a toolchain; `make -C csrc` enables it.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -48,6 +49,13 @@ def _try_load(expect_sha: Optional[str]) -> Optional[ctypes.CDLL]:
     to be built from)."""
     if not os.path.exists(_LIB_PATH):
         return None
+    if expect_sha is not None:
+        # check the baked-in hash before loading: a process that has
+        # loaded a stale library keeps getting it back from dlopen even
+        # after the file is rebuilt
+        with open(_LIB_PATH, "rb") as f:
+            if expect_sha.encode("ascii") not in f.read():
+                return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:
@@ -138,16 +146,24 @@ def get_lib() -> Optional[ctypes.CDLL]:
     expect = _source_sha()
     _lib = _try_load(expect)
     if _lib is None and os.environ.get("FRAVE_NO_NATIVE_BUILD") != "1":
+        # processes that start together (test workers) would otherwise
+        # build over each other and load a half-written library: one
+        # builds under the lock, the others wait and load its result
         try:
-            subprocess.run(
-                ["make", "-C", _CSRC_DIR],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
+            os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+            with open(_LIB_PATH + ".lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                _lib = _try_load(expect)
+                if _lib is None:
+                    subprocess.run(
+                        ["make", "-C", _CSRC_DIR],
+                        check=True,
+                        capture_output=True,
+                        timeout=120,
+                    )
+                    _lib = _try_load(expect)
         except (OSError, subprocess.SubprocessError):
             return None
-        _lib = _try_load(expect)
     return _lib
 
 
@@ -228,7 +244,7 @@ def build_geometry_native(height: int, width: int, depth: int):
 
 def refbase_roundtrip(image, cache_geometry: bool = False):
     """Single-thread C reference-baseline codec (csrc/refbase.cpp): the
-    measured stand-in for the Rust CLI (BASELINE.md). Encodes + decodes
+    measured stand-in for the Rust CLI. Encodes + decodes
     `image` [H, W, C] uint8, asserts losslessness, returns
     (encode_seconds, decode_seconds, blob_bytes). cache_geometry=False
     rebuilds the tile lattice per call like the reference does

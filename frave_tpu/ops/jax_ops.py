@@ -7,10 +7,12 @@ frave_tpu/ops/prediction.py) with *identical arithmetic semantics*:
     211-218) implemented branch-free on int32;
   * context math (MED predictor, learned 6-tap predictors, width -> bucket
     LUT) is IEEE f32 elementwise with a fixed operation order — no
-    reductions, so XLA cannot reorder anything and the encoder, the JAX
-    decoder and the numpy decoder all agree bit-for-bit on every bucket
-    and prediction (the self-consistency requirement of
-    entropy_coding.rs:205-264, where decode re-derives encode's contexts).
+    reductions, so XLA cannot reorder anything, and every product is
+    formed so that fused multiply-add contraction cannot change its
+    rounding (contexts_hf) — so the encoder, the JAX decoder and the
+    numpy decoder all agree bit-for-bit on every bucket and prediction
+    (the self-consistency requirement of entropy_coding.rs:205-264,
+    where decode re-derives encode's contexts).
 
 Everything here is shape-static and jit-friendly; geometry arrives as
 index tensors from frave_tpu/fractal/geometry.py.
@@ -39,13 +41,12 @@ def f16_wire_round(x: jnp.ndarray) -> jnp.ndarray:
 
     Format v8 ships predictor parameters as f16 on the wire, and the
     encoder must form residuals with EXACTLY the wire values (the
-    self-consistency contract of entropy_coding.rs:205-264). On this
-    TPU, XLA's `astype(f16).astype(f32)` does NOT implement IEEE f16
-    RNE (measured round 2: maxdiff 0.99 vs numpy's conversion — an
-    encode whose in-graph fits went through it produced undecodable
-    streams because the host container then re-rounded the fetched
-    params to real f16). So the rounding is done here with exact
-    integer/VPU ops only:
+    self-consistency contract of entropy_coding.rs:205-264). XLA's
+    `astype(f16).astype(f32)` is not guaranteed to be IEEE f16 RNE on
+    every backend (on one it was not, and an encode whose in-graph fits
+    went through it produced undecodable streams because the host
+    container then re-rounded the fetched params to real f16). So the
+    rounding is done here with exact integer ops only:
 
       * normal f16 range (|x| >= 2^-14): RNE-truncate the f32 mantissa
         to 10 bits via the standard `+ 0xFFF + lsb` carry trick
@@ -54,8 +55,8 @@ def f16_wire_round(x: jnp.ndarray) -> jnp.ndarray:
       * subnormal range (|x| < 2^-14): RNE onto the 2^-24 grid with an
         explicit mantissa shift (q = RNE(m >> (126 - e)), result
         q * 2^-24 — exact: q <= 1024 and 2^-24 is a normal f32). Pure
-        integer ops — a float-trick version ((|x| + 0.5) - 0.5) was
-        algebraically simplified away by XLA on TPU (measured);
+        integer ops — a float-trick version ((|x| + 0.5) - 0.5) can be
+        algebraically simplified away by XLA;
       * NaN propagates, sign is reapplied bitwise (so -0 survives).
     """
     bits = jax.lax.bitcast_convert_type(x.astype(jnp.float32), jnp.uint32)
@@ -202,13 +203,13 @@ def contexts(
 
     onehot_params selects the per-symbol predictor rows with a one-hot
     einsum instead of a batched-index gather: inside the decode scan a
-    batched gather costs ~400us/step on this TPU regardless of table size
-    (measured round 2: the two param gathers were ~25% of the whole
-    2048x2048 decode-step cost), while the [*, num_fine] one-hot
-    contraction is pure vector ALU. Exactness: exactly one term of the
-    contraction is nonzero and Precision.HIGHEST keeps the MXU path f32 —
-    bf16-truncated default lowering would corrupt f16 wire params. Encode
-    paths keep the gather: ONE bulk gather over all K symbols is cheap."""
+    batched gather has a fixed per-step cost whatever the table size,
+    while the [*, num_fine] one-hot contraction is plain arithmetic.
+    Exactness: exactly one term of the contraction is nonzero and
+    Precision.HIGHEST keeps the contraction in f32 — a bf16- or
+    TF32-truncated default lowering would corrupt f16 wire params.
+    Encode paths keep the gather: ONE bulk gather over all K symbols is
+    cheap."""
     v = vals.astype(jnp.int32)
     v0, v1, v2 = v[..., 0], v[..., 1], v[..., 2]
 
@@ -220,16 +221,18 @@ def contexts(
 
     # HF: learned width on 5 gradient features + bias; learned 6-tap value
     gi = group.astype(jnp.int32)
+    # split the [F, 6] tables once; rows are selected from the split form
+    vps, wps = split_params(vparams), split_params(wparams)  # [F, 2, 6]
     if onehot_params:
         oh = (
             gi[..., None] == jnp.arange(vparams.shape[0], dtype=jnp.int32)
         ).astype(jnp.float32)  # [..., F]
         _HI = jax.lax.Precision.HIGHEST
-        vp = jnp.einsum("...f,fx->...x", oh, vparams, precision=_HI)
-        wp = jnp.einsum("...f,fx->...x", oh, wparams, precision=_HI)
+        vp = jnp.einsum("...f,fhx->...hx", oh, vps, precision=_HI)
+        wp = jnp.einsum("...f,fhx->...hx", oh, wps, precision=_HI)
     else:
-        vp = vparams[gi]  # [..., 6]
-        wp = wparams[gi]
+        vp = vps[gi]  # [..., 2, 6]
+        wp = wps[gi]
     hf_bucket, hf_pred = contexts_hf(vals, vp, wp)
 
     bucket = jnp.where(lf, lf_bucket, hf_bucket)
@@ -238,38 +241,65 @@ def contexts(
     return bucket, pred
 
 
+def split_params(p: jnp.ndarray) -> jnp.ndarray:
+    """Predictor parameters [..., 6] f32 -> [..., 2, 6]: each p as
+    (hi, lo) with p = hi + lo exactly and each part at most 12
+    significant bits (hi keeps the top 12 bits of the f32 significand).
+    Split the parameter tables or rows before the per-symbol work, which
+    then needs only the two exact products of _rounded_product."""
+    bits = jax.lax.bitcast_convert_type(p, jnp.uint32)
+    hi = jax.lax.bitcast_convert_type(
+        bits & jnp.uint32(0xFFFFF000), jnp.float32
+    )
+    return jnp.stack([hi, p - hi], axis=-2)
+
+
+def _rounded_product(x: jnp.ndarray, hi: jnp.ndarray, lo: jnp.ndarray):
+    """f32 round(x * (hi + lo)) for integer-valued x with |x| < 2**11,
+    immune to fused multiply-add contraction.
+
+    XLA may contract `a * b + c` into one FMA (its CPU backend does),
+    which skips the product's rounding; the numpy and C++ decoders
+    round it.
+    Here both partial products are exact (11 + 12 bits), so their sum
+    rounds once to exactly the rounded full product, contracted or not,
+    and the result is not a multiply that a following add could absorb."""
+    return x * hi + x * lo
+
+
 def contexts_hf(vals: jnp.ndarray, vp: jnp.ndarray, wp: jnp.ndarray):
-    """HF context bucket + UNCLAMPED prediction with already-selected
-    predictor rows (vp/wp broadcastable to [..., 6]) — the shared core of
+    """HF context bucket + UNCLAMPED prediction with already-selected,
+    split predictor rows (vp/wp from split_params, broadcastable to
+    [..., 2, 6]) — the shared core of
     `contexts` and the segment decode path, where the parameter group is
     constant per schedule segment so no per-symbol selection is needed
-    (prediction.rs:151-207)."""
+    (prediction.rs:151-207).
+
+    Every product goes through _rounded_product, so the sums equal the
+    numpy twin's separately rounded products bit for bit on any backend.
+    Tap values are bounded by 767 and gradients by 1534, inside its
+    |x| < 2**11 contract. Format v8+ parameters are f16 values, whose
+    products are exact anyway; v7 containers carry full f32 ones."""
     vf = vals.astype(jnp.float32)
     g1 = jnp.abs(vf[..., 0] - vf[..., 3])
     g2 = jnp.abs(vf[..., 1] - vf[..., 2])
     g3 = jnp.abs(vf[..., 4] - vf[..., 5])
     g4 = jnp.abs(vf[..., 1] - vf[..., 5])
     g5 = jnp.abs(vf[..., 2] - vf[..., 4])
-    hf_width = (
-        wp[..., 0]
-        + wp[..., 1] * g1
-        + wp[..., 2] * g2
-        + wp[..., 3] * g3
-        + wp[..., 4] * g4
-        + wp[..., 5] * g5
-    )
+    whi, wlo = wp[..., 0, :], wp[..., 1, :]
+    hf_width = whi[..., 0] + wlo[..., 0]  # exact: the parameter itself
+    for k, g in enumerate((g1, g2, g3, g4, g5), start=1):
+        hf_width = hf_width + _rounded_product(g, whi[..., k], wlo[..., k])
     # flat-context rule — see ops/prediction.py (exact twin)
     gsum = g1 + g2 + g3 + g4 + g5
     hf_width = jnp.where(gsum == jnp.float32(0), jnp.float32(0), hf_width)
     hf_bucket = assign_bucket_f32(hf_width)
-    hf_pred_f = (
-        vf[..., 0] * vp[..., 0]
-        + vf[..., 1] * vp[..., 1]
-        + vf[..., 2] * vp[..., 2]
-        + vf[..., 3] * vp[..., 3]
-        + vf[..., 4] * vp[..., 4]
-        + vf[..., 5] * vp[..., 5]
-    )
+    vhi, vlo = vp[..., 0, :], vp[..., 1, :]
+    hf_pred_f = _rounded_product(vf[..., 0], vhi[..., 0], vlo[..., 0])
+    for k in range(1, 6):
+        hf_pred_f = hf_pred_f + _rounded_product(
+            vf[..., k], vhi[..., k], vlo[..., k]
+        )
     # Rust `as i32` truncates; values beyond +-PRED_CLAMP collapse to the
     # clamp below, so a conservative pre-clip keeps f32->i32 conversion
     # well-defined without changing any in-range result.
@@ -301,7 +331,7 @@ def contexts_static(
         bucket = assign_bucket_f32(jnp.abs(v0 - v2).astype(jnp.float32))
         pred = med
     else:
-        bucket, pred = contexts_hf(vals, vp, wp)
+        bucket, pred = contexts_hf(vals, split_params(vp), split_params(wp))
     return bucket, jnp.clip(pred, -PRED_CLAMP, PRED_CLAMP)
 
 

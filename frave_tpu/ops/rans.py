@@ -1,6 +1,6 @@
 """Interleaved-lane rANS entropy coder (numpy host implementation).
 
-Design (TPU-native redesign of entropy_coding.rs:161-352):
+Design (data-parallel redesign of entropy_coding.rs:161-352):
 
   * 32-bit state per lane, 16-bit renormalization words, state domain
     [2^16, 2^32). With per-context scale_bits <= MAX_FREQ_BITS_CAP = 14

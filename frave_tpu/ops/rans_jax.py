@@ -3,7 +3,7 @@
 Same wire semantics as the numpy host coder (frave_tpu/ops/rans.py): 32-bit
 state per lane, 16-bit renorm words, state domain [2^16, 2^32), per-context
 scale_bits <= 14 so each symbol moves at most one word in either direction.
-The TPU redesign of the reference's per-symbol serial coder
+The data-parallel redesign of the reference's per-symbol serial coder
 (entropy_coding.rs:266-352):
 
   * Encode is a `lax.scan` in reverse schedule order over the [R, NL]
@@ -39,13 +39,10 @@ RANS_L = 1 << 16
 WORD_BITS = 16
 LUT_BITS = 14  # == MAX_FREQ_BITS_CAP (frave_tpu/entropy/tables.py)
 
-# lax.scan unroll factor for both rANS scans. Measured round 2
-# (benchmarks/scan_unroll.py + encode_ablation.py on the live TPU):
-# unroll HURTS both scans (decode B=64: 196ms @1, 208 @4, 226 @8;
-# encode scan 164 @1, 176 @4) — the per-step cost is the batched-index
-# gathers themselves, not loop-trip overhead, so unrolling only grows
-# the program. Default stays 1; the knob remains for re-measurement on
-# other TPU generations.
+# lax.scan unroll factor for both rANS scans. On the hardware this was
+# first tuned on, unrolling hurt both scans (the per-step cost was the
+# batched-index gathers, not loop-trip overhead, so unrolling only grew
+# the program). Default stays 1 until a GPU trace re-decides it.
 SCAN_UNROLL = int(os.environ.get("FRAVE_SCAN_UNROLL", "1"))
 
 
@@ -71,10 +68,9 @@ def encode_scan(
 
     # Per-symbol (freq, cdf, bits) via IN-SCAN one-hot window selection
     # instead of a bulk [R, ..., NL] table gather: that gather was the
-    # single hottest op of the whole encode (54ms of a 139ms device
-    # profile at B=64 256^2 — ~13ns per random lookup), while bf16
-    # one-hot MXU contractions measure ~free (benchmarks/
-    # op_cost_probe.py). The per-(bucket, sym>>5) window of 33
+    # single hottest op of the whole encode in a round-2 device profile,
+    # while the bf16 one-hot contractions cost little. The
+    # per-(bucket, sym>>5) window of 33
     # *overlapping* cdf entries (entry 1024 = 2**bits sentinel) yields
     # cdf[s] and freq[s] = cdf[s+1] - cdf[s] — exact for every coded
     # symbol, whose freq is nonzero by construction. bf16 exactness: see
@@ -180,9 +176,8 @@ def stream_compact(
     """Device-side global-stream compaction: ONE key sort both reorders
     emissions into decode order and packs flagged words densely
     (round 3; previously a perm gather + cumsum scatter, which profiled
-    at ~28ms/batch against ~7ms for an equal-size sort — random-access
-    scatters are ~4x slower per element than sort's streaming passes on
-    this TPU). Key = decode rank for flagged slots, +inf-like for
+    several times slower than an equal-size sort on the hardware first
+    tuned on). Key = decode rank for flagged slots, +inf-like for
     unflagged; ranks are distinct, so the first `total` sorted values
     are the stream. Returns (stream [kc] uint16 zero-padded tail,
     total int32)."""
@@ -214,8 +209,8 @@ def stream_compact_grid(
     (rows are steps; within a step words go channel-major, lane-minor —
     build_stream_perm degenerates to the identity on valid slots), so
     the global (rank, word) sort of stream_compact over R*C*NL elements
-    (~170 ms of the 2048^2 RGB device encode, round-4 ablation) is
-    overkill. Instead:
+    (the largest stage of the 2048^2 RGB device encode in a round-4
+    ablation) is overkill. Instead:
 
       * pack each row's flagged words with ONE single-operand u32 sort
         along the row: key = (in-row rank if flagged else 0xFFFF) << 16
@@ -266,7 +261,7 @@ def stream_compact_scatter(
     kc: int,
 ):
     """Grid-mode compaction via exclusive prefix sum + one scatter (the
-    cumsum alternative to stream_compact_grid, for on-chip A/B): decode
+    cumsum alternative to stream_compact_grid, for device A/B): decode
     rank == flat order, so dst = cumsum(flags) - 1; unflagged slots all
     route to the discard index kc (collisions there are garbage that the
     final slice drops). Returns (stream [kc] uint16, total int32)."""
@@ -289,11 +284,11 @@ def build_merged_decode_table(
     entry[..., 1] = symbol. The decode step then needs ONE
     batched-index gather instead of three.
 
-    Measured motivation (round-2 scan ablation, benchmarks/
-    scan_ablation.py): a batched-index gather costs ~500-650us/step at
-    B=64 on this TPU *regardless of table size*, so three separate
-    lookups (bits, LUT, freq/cdf) triple the cost for nothing. The
-    earlier merged-table attempt was 2.5x slower end-to-end because its
+    Motivation (round-2 scan ablation, benchmarks/scan_ablation.py): on
+    the hardware first tuned on, a batched-index gather cost the same
+    per step *whatever the table size*, so three separate lookups (bits,
+    LUT, freq/cdf) tripled the cost for nothing. The earlier
+    merged-table attempt was 2.5x slower end-to-end because its
     table was built WITH batched gathers (freq[sym[p]] style) — ~1e9
     indexed lookups per call. This construction uses only a bincount
     scatter + prefix ops (cumsum/cummax/cummin), exploiting run
@@ -356,11 +351,11 @@ def prepare_compare_tables(cdfs, scale_bits, alphabet=1024):
     """Precompute the bf16 two-plane cdf tables for the gather-free
     decode step (decode_step_comparefree).
 
-    The round-3 redesign: batched-index gathers inside the decode scan
-    cost ~0.4ms/step on the target TPU regardless of table size, while a
-    bf16 one-hot einsum on the MXU is ~free (measured,
-    benchmarks/op_cost_probe.py: gather 402-410us, bf16 one-hot 0.4us,
-    scatter ~0us). So the per-symbol (sym, freq, cdf) lookup of the
+    The round-3 redesign: on the hardware first tuned on, batched-index
+    gathers inside the decode scan had a fixed per-step cost whatever
+    the table size, while a bf16 one-hot einsum was nearly free. Whether
+    that holds on a GPU is open (a decision input for the decode-scan
+    kernel). So the per-symbol (sym, freq, cdf) lookup of the
     reference decoder (entropy_coding.rs:180-185,246-255) becomes pure
     compare/reduce arithmetic against cdf STAIRCASES selected by one-hot
     contractions:
@@ -374,7 +369,7 @@ def prepare_compare_tables(cdfs, scale_bits, alphabet=1024):
     bf16 exactness: one-hot entries are 0/1; cdf values (<= 2**14) are
     split into hi = cdf >> 7 (<= 128) and lo = cdf & 127 (<= 127) planes,
     both exactly representable in bf16 (integers <= 256); each
-    contraction has exactly one nonzero term, so the f32-accumulated MXU
+    contraction has exactly one nonzero term, so the f32-accumulated
     result is exact.
 
     cdfs: [..., CA, alphabet] int; scale_bits: [..., CA] int (<= 14).
@@ -413,7 +408,7 @@ def distribute_words(x_new, need, stream, gptr):
     pos = jnp.cumsum(nf) - 1
     block = jax.lax.dynamic_slice(stream, (gptr,), (blk,))
     if blk <= 2048:
-        # one-hot MXU contraction over exact-in-bf16 byte planes (see
+        # one-hot contraction over exact-in-bf16 byte planes (see
         # decode_step_merged docstring for the bf16-truncation hazard
         # that forces the byte split)
         block_bytes = jnp.stack(
@@ -562,18 +557,17 @@ def decode_step_merged(
     scale_bits: jnp.ndarray,  # [C, CA] int32, all <= lut_bits
     lut_bits: int = LUT_BITS,
 ):
-    """One decode step against the merged table — the fast path on this
-    TPU, where batched-index gathers cost ~600us each regardless of size
-    (scan ablation): the three table lookups of decode_step_stream
-    become (a) a one-hot contraction for scale_bits (15 entries — pure
-    vector ALU, exact in f32) and (b) ONE merged-table gather; the
+    """One decode step against the merged table: the three table lookups
+    of decode_step_stream become (a) a one-hot contraction for
+    scale_bits (15 entries, exact in f32) and (b) ONE merged-table
+    gather; the
     per-step renorm words are read with one dynamic_slice at gptr (the
     words a step consumes are contiguous in the global stream) and
-    distributed to lanes by a one-hot einsum over SPLIT BYTES: on this
-    TPU a vmapped einsum lowers onto the MXU with bf16-truncated inputs
-    (measured, round 2 — values > 8 bits significand are corrupted), so
-    the u16 words go through as two exact-in-bf16 byte planes and are
-    recombined after the contraction.
+    distributed to lanes by a one-hot einsum over SPLIT BYTES: a
+    default-precision einsum may run with bf16-truncated inputs (values
+    above 8 significant bits are then corrupted), so the u16 words go
+    through as two exact-in-bf16 byte planes and are recombined after
+    the contraction.
 
     CALLER CONTRACT: stream must be zero-padded so gptr + C*NL never
     exceeds its length (dynamic_slice would clamp the start and shift
@@ -587,7 +581,8 @@ def decode_step_merged(
         bkt[..., None] == jnp.arange(CONTEXT_AMOUNT, dtype=jnp.int32)
     ).astype(jnp.float32)  # [C, NL, CA]
     bi = jnp.einsum(
-        "cnk,ck->cn", oh, scale_bits.astype(jnp.float32)
+        "cnk,ck->cn", oh, scale_bits.astype(jnp.float32),
+        precision=jax.lax.Precision.HIGHEST,
     ).astype(jnp.uint32)
     mask = (jnp.uint32(1) << bi) - jnp.uint32(1)
     slot = x & mask
@@ -603,11 +598,11 @@ def decode_step_merged(
     pos = jnp.cumsum(nf) - 1  # channel-major, lane-minor ordering
     block = jax.lax.dynamic_slice(stream, (gptr,), (blk,))
     if blk <= 2048:
-        # one-hot MXU contraction: at small blk the [blk, blk] one-hot
-        # is tiny and beats the fixed overhead of a batched-index gather
-        # (measured round 2); u16 words travel as two exact-in-bf16 byte
-        # planes because vmapped einsums lower with bf16-truncated
-        # inputs on this TPU (see module docstring)
+        # one-hot contraction: at small blk the [blk, blk] one-hot is
+        # tiny and beat the fixed overhead of a batched-index gather
+        # (round 2); byte planes keep every value exact in bf16 (see
+        # the docstring), and HIGHEST pins f32 whatever the backend's
+        # default precision
         block_bytes = jnp.stack(
             [block & jnp.uint16(0xFF), block >> jnp.uint16(8)], axis=-1
         ).astype(jnp.float32)  # [blk, 2] byte planes, each value <= 255
@@ -615,13 +610,15 @@ def decode_step_merged(
             (pos[:, None] == jnp.arange(blk, dtype=jnp.int32))
             & (nf[:, None] > 0)
         ).astype(jnp.float32)  # [C*NL, blk]
-        wb = jnp.einsum("nb,bk->nk", ohp, block_bytes).astype(jnp.uint32)
+        wb = jnp.einsum(
+            "nb,bk->nk", ohp, block_bytes,
+            precision=jax.lax.Precision.HIGHEST,
+        ).astype(jnp.uint32)
         w = (wb[..., 0] | (wb[..., 1] << jnp.uint32(8))).reshape(C, NL)
     else:
         # the one-hot is O(blk^2) — 604MB/step at C*NL=12288 (2048 RGB,
-        # nl=4096), which made large-image decode einsum-bound (measured
-        # round 2: 3.7s per 2048x2048 RGB decode). A batched-index
-        # gather is ~20ns/lookup: linear in blk and far cheaper here.
+        # nl=4096), which made large-image decode einsum-bound. A
+        # batched-index gather is linear in blk and far cheaper here.
         w = block[jnp.clip(pos, 0, blk - 1)].reshape(C, NL).astype(
             jnp.uint32
         )

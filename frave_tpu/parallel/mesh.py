@@ -11,8 +11,11 @@ from jax.sharding import Mesh
 
 def mesh_factorization(n: int) -> Tuple[int, int]:
     """Split n devices into (dp, tp): the largest power-of-two dp <= sqrt(n)
-    that divides n, remainder to tp (tile/lane axis gets the larger share —
-    intra-image collectives ride the faster contiguous axis)."""
+    that divides n, remainder to tp. The tile/lane axis gets the larger
+    share because intra-image decode collectives run per scan step while
+    dp never communicates. On GPUs joined all to all (NVLink) every pair
+    of devices is equally close, so the split follows the algorithm
+    alone; device order within the mesh does not matter."""
     dp = 1
     while dp * 2 <= n // (dp * 2) and n % (dp * 2) == 0:
         dp *= 2

@@ -2,15 +2,15 @@
 checkpoint/resume, host-side bitstream gather.
 
 The reference has no notion of any of this (SURVEY.md section 2.3/5:
-single process, CLI panics on errors, no resume). This module supplies the
-TPU-native equivalents required by BASELINE.json config 5:
+single process, CLI panics on errors, no resume). This module supplies
+the multi-host layer (BASELINE.json config 5):
 
-  * `init_distributed` wraps jax.distributed.initialize (DCN is used only
-    for host-level orchestration — entropy-coded bytes are host data and
-    never cross ICI, SURVEY.md section 5);
+  * `init_distributed` wraps jax.distributed.initialize (the network
+    between hosts carries orchestration only — entropy-coded bytes are
+    host data, SURVEY.md section 5);
   * `CorpusRunner` shards a corpus of images across hosts (deterministic
     round-robin by process index), encodes shape-bucketed batches through
-    the single-chip fused pipeline, and writes per-image .frv files — the
+    the single-device fused pipeline, and writes per-image .frv files — the
     host-side bitstream mux of the north star;
   * progress is checkpointed to a per-host JSON manifest after every
     batch (atomic tmp+rename), so a killed run resumes where it stopped —
@@ -39,7 +39,12 @@ def init_distributed(
 ) -> int:
     """Initialize jax.distributed if a multi-process setup is requested
     (explicitly or via JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID env). Returns the process index (0 when single-host)."""
+    JAX_PROCESS_ID env). Returns the process index (0 when single-host).
+
+    The layout is one process per host, driving all of that host's
+    devices: no `local_device_ids` is passed, so each process sees every
+    local GPU. A process per GPU on one host is not supported — every
+    process would claim every card."""
     import jax
 
     coordinator_address = coordinator_address or os.environ.get(

@@ -2,7 +2,7 @@
 only ad-hoc println stats; this is the jax.profiler-based replacement).
 
 Usage:
-    with trace("/tmp/frave-trace"):          # XLA/TPU timeline -> TensorBoard
+    with trace("frave-trace"):               # XLA device timeline -> TensorBoard
         encode(...)
 
     with stage_timer("encode/device"):        # wall-clock per stage -> metrics

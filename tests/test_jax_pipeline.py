@@ -1,6 +1,6 @@
 """JAX compute-path tests: round trips + cross-backend agreement.
 
-The correctness contract (BASELINE.md): lossless round trips are bit-exact,
+The correctness contract (README.md): lossless round trips are bit-exact,
 and a bitstream produced by either backend decodes to identical pixels on
 both backends (parameters and tables travel in the container; context math
 is the same IEEE f32 op sequence everywhere).
@@ -211,7 +211,7 @@ def test_batched_matches_single_pixels():
     """Bitstream bytes may differ across batch sizes (XLA picks different
     f32 reduction orders for the predictor fit per program), but every
     stream must decode losslessly on any backend — decoded pixels are the
-    contract (BASELINE.md)."""
+    contract (README.md)."""
     from frave_tpu.codec.pipeline_jax import encode_pipeline_jax_batch
     from frave_tpu.codec.container import serialize
 

@@ -1,5 +1,5 @@
 """Single-thread C reference baseline (csrc/refbase.cpp): the measured
-stand-in for the Rust CLI in BASELINE.md. Contract: lossless round trip
+stand-in for the Rust CLI (bench.py's vs_baseline). Contract: lossless round trip
 on arbitrary uint8 images (refbase_roundtrip asserts pixel equality
 internally) across shapes, channel counts, and the geometry-cache modes.
 """

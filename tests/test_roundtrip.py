@@ -1,6 +1,6 @@
 """Golden round-trip tests: decode(encode(x)) == x bit-exact for lossless.
 
-This is the codec's central correctness contract (BASELINE.md: decoded
+This is the codec's central correctness contract (README.md: decoded
 pixels bit-exact; the pipeline is lossless at LOSSLESS quality).
 """
 

@@ -76,8 +76,8 @@ def _check(hist):
 
 def test_scale_selection_agrees_on_cpu():
     """Host select_scale vs device select_scales_device: both are f32
-    dot products, so on the CPU backend they must agree exactly. (On a
-    real TPU the MXU contraction could order sums differently — that is
+    dot products, so on the CPU backend they must agree exactly. (On an
+    accelerator the contraction may order sums differently — that is
     fine, the chosen index travels on the wire.)"""
     import jax.numpy as jnp
 

@@ -47,8 +47,8 @@ def test_floor_log2():
 def test_f16_wire_round_matches_numpy():
     """J.f16_wire_round must reproduce numpy's f32->f16->f32 (IEEE RNE)
     bit-for-bit: format v8 wire params are f16 and encode-side residual
-    math must use exactly the wire values. XLA's own f16 convert is NOT
-    IEEE RNE on the target TPU (measured round 2), hence the integer-op
+    math must use exactly the wire values. XLA's own f16 convert is not
+    guaranteed IEEE RNE on every backend, hence the integer-op
     implementation under test."""
     import jax.numpy as jnp
 
